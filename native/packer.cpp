@@ -1,5 +1,5 @@
 // Native fast path for host-side packing of ASCII eBWT / document-array
-// files into the TPU block layout (see ebwt2indel_tpu/ops/packing.py for the
+// files into the device block layout (see ebwt2indel/ops/packing.py for the
 // layout contract: 128-char blocks = 3 bitplanes x 4 LSB-first uint32 words +
 // 4 absolute uint32 counters).
 //

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ebwt2indel_tpu.utils import dna
+from ebwt2indel.utils import dna
 
 # ---------------------------------------------------------------------------
 # string-level oracles

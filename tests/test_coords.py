@@ -12,7 +12,7 @@ import jax  # noqa: F401
 import jax.numpy as jnp
 import pytest
 
-from ebwt2indel_tpu.ops import coords
+from ebwt2indel.ops import coords
 
 
 RNG = np.random.default_rng(7)
@@ -72,7 +72,7 @@ def test_arithmetic_wraps_like_unsigned():
 
 def test_f_char_unsigned_boundaries():
     """f_char's boundary compare must order F values past 2^31."""
-    from ebwt2indel_tpu.models import fm_index as fm_ops
+    from ebwt2indel.models import fm_index as fm_ops
 
     class FakeFM:
         F = jnp.asarray(np.array(
@@ -94,7 +94,7 @@ def test_f_char_unsigned_boundaries():
 
 def test_select_block_unsigned_counters():
     """select_block orders per-block counters as unsigned past 2^31."""
-    from ebwt2indel_tpu.ops import rank
+    from ebwt2indel.ops import rank
 
     # synthetic absolute counters for one char crossing 2^31
     counts_u = np.array([0, 100, 2**31 - 1, 2**31 + 50, 3_000_000_000,
@@ -123,7 +123,7 @@ def test_dif_scatter_split_addressing():
     pieces: lo covers [0, 64), hi covers [_SPLIT, _SPLIT+64) — the
     production mapping with lo_size shrunk (production lo = _SPLIT
     entries, gap-free)."""
-    from ebwt2indel_tpu.models import traverse
+    from ebwt2indel.models import traverse
 
     sz = 64
     SP = traverse._SPLIT
@@ -155,9 +155,9 @@ def test_traversal_parity_1d_vs_2d_dif(body, tmp_path, monkeypatch):
     """Forcing the huge (2-D dif + lean) layout on a small input must
     reproduce the default result bit-for-bit: same traversal, different
     delta addressing (the layout used for real above 2^31 entries)."""
-    from ebwt2indel_tpu.models import traverse
-    from ebwt2indel_tpu.models.fm_index import FMIndex
-    from ebwt2indel_tpu.tools import ebwt as ebwt_tool
+    from ebwt2indel.models import traverse
+    from ebwt2indel.models.fm_index import FMIndex
+    from ebwt2indel.tools import ebwt as ebwt_tool
 
     reads = ["ACGTACGGTTACA", "ACGTACCGTTACA", "TTACGGAACCGTA",
              "GGACGTACGGTTA", "CATTACGGAACCG"]

@@ -5,8 +5,8 @@ import io
 
 import numpy as np
 
-from ebwt2indel_tpu.models import emit, emit_vec
-from ebwt2indel_tpu.utils.config import Config
+from ebwt2indel.models import emit, emit_vec
+from ebwt2indel.utils.config import Config
 
 BASES = np.frombuffer(b"ACGT", np.uint8)
 

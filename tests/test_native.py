@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from ebwt2indel_tpu.ops import packing
-from ebwt2indel_tpu.utils import dna
+from ebwt2indel.ops import packing
+from ebwt2indel.utils import dna
 from tests.test_rank import random_codes
 
-native = pytest.importorskip("ebwt2indel_tpu.ops.native")
+native = pytest.importorskip("ebwt2indel.ops.native")
 
 
 def test_native_pack_matches_numpy(rng):
@@ -44,7 +44,7 @@ def test_range_packing_assembles_to_full_pack(tmp_path, rng):
     """pack_file_range over any shard split + exscanned bases reproduces
     pack_file's blocks/counters bit-for-bit (the sharded loader's
     correctness contract)."""
-    from ebwt2indel_tpu.ops import packing
+    from ebwt2indel.ops import packing
 
     for n in (5000, 128 * 7, 128 * 7 + 1, 300):
         raw = rng.choice(
@@ -75,8 +75,8 @@ def test_range_packing_assembles_to_full_pack(tmp_path, rng):
 def test_shard_fm_from_file_matches_shard_fm(tmp_path, rng):
     """The per-range sharded loader builds device arrays identical to the
     full-pack shard_fm path on the 8-device virtual mesh."""
-    from ebwt2indel_tpu.ops import packing
-    from ebwt2indel_tpu.parallel import shard
+    from ebwt2indel.ops import packing
+    from ebwt2indel.parallel import shard
 
     raw = rng.choice(
         np.frombuffer(b"ACGT#", dtype=np.uint8), size=40_000

@@ -6,8 +6,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ebwt2indel_tpu.ops import packing
-from ebwt2indel_tpu.parallel import shard
+from ebwt2indel.ops import packing
+from ebwt2indel.parallel import shard
 from tests import oracle
 from tests.test_rank import random_codes
 
@@ -67,7 +67,7 @@ def test_sharded_sorted_rank_matches_dense(rng):
         )
 
     got = np.asarray(jax.jit(run)(blocks, jnp.asarray(coords)))
-    from ebwt2indel_tpu.ops import rank as rank_ops
+    from ebwt2indel.ops import rank as rank_ops
 
     want = np.asarray(rank_ops.parallel_rank(jnp.asarray(pb.blocks),
                                              jnp.asarray(coords)))
@@ -84,8 +84,8 @@ def test_frontier_node_phase_matches_replicated(rng, n, p_term, K, k_right):
     """The frontier-sharded node phase (per-shard queues, all_to_all child
     routing, halo'd local narrow rank) must produce the exact flags and
     visit/LCP/minima counts of the replicated-queue sharded phase."""
-    from ebwt2indel_tpu.parallel import frontier
-    from ebwt2indel_tpu.parallel import traverse as ptraverse
+    from ebwt2indel.parallel import frontier
+    from ebwt2indel.parallel import traverse as ptraverse
 
     mesh = shard.make_mesh(8)
     codes = random_codes(rng, n, p_term=p_term)
@@ -106,8 +106,8 @@ def test_frontier_overflow_retry_paths(rng):
     """Starved budgets (wide buffer, spill buffer, all_to_all segments)
     must trigger the overflow-retry doublings and still converge to the
     exact replicated-phase flags."""
-    from ebwt2indel_tpu.parallel import frontier
-    from ebwt2indel_tpu.parallel import traverse as ptraverse
+    from ebwt2indel.parallel import frontier
+    from ebwt2indel.parallel import traverse as ptraverse
 
     mesh = shard.make_mesh(8)
     codes = random_codes(rng, 30000, p_term=0.04)
@@ -128,8 +128,8 @@ def test_frontier_full_navigation_matches_replicated(rng):
     """navigate_one_bwt_frontier_device (leaf + node frontier phases +
     packed-lane combine + reshard) must equal the replicated-queue
     navigate_one_bwt_sharded_device bit for bit."""
-    from ebwt2indel_tpu.parallel import frontier
-    from ebwt2indel_tpu.parallel import traverse as ptraverse
+    from ebwt2indel.parallel import frontier
+    from ebwt2indel.parallel import traverse as ptraverse
 
     mesh = shard.make_mesh(8)
     codes = random_codes(rng, 50000, p_term=0.03)
@@ -150,8 +150,8 @@ def test_frontier_full_navigation_matches_replicated(rng):
 def test_frontier_pair_navigation_matches_replicated(rng):
     """Frontier-sharded lockstep navigation (modes 2/3) must equal the
     replicated-queue pair navigation bit for bit, including the DA."""
-    from ebwt2indel_tpu.parallel import frontier
-    from ebwt2indel_tpu.parallel import traverse as ptraverse
+    from ebwt2indel.parallel import frontier
+    from ebwt2indel.parallel import traverse as ptraverse
 
     mesh = shard.make_mesh(8)
     codes1 = random_codes(rng, 30000, p_term=0.03)
@@ -196,16 +196,16 @@ def test_sharded_node_phase_matches_single_device(rng):
     LCP-threshold and minima flags as the single-device queue traversal."""
     import jax.numpy as jnp
 
-    from ebwt2indel_tpu.models import fm_index, traverse
-    from ebwt2indel_tpu.parallel import traverse as ptrav
-    from ebwt2indel_tpu.tools import ebwt as ebwt_tool
-    from ebwt2indel_tpu.utils import dna
+    from ebwt2indel.models import fm_index, traverse
+    from ebwt2indel.parallel import traverse as ptrav
+    from ebwt2indel.tools import ebwt as ebwt_tool
+    from ebwt2indel.utils import dna
 
     genome = "".join(rng.choice(list("ACGT"), size=400))
     reads = [genome[i:i + 50] for i in range(0, 340, 3)]
     bwt = ebwt_tool.ebwt_of_reads(reads)
     codes = dna.str_to_codes(bwt)
-    from ebwt2indel_tpu.ops import packing
+    from ebwt2indel.ops import packing
 
     pb = packing.pack_codes(codes)
     K, k_right = 6, 9
@@ -230,11 +230,11 @@ def test_sharded_node_phase_matches_single_device(rng):
 def test_sharded_pair_navigation_matches_single_device(rng):
     """Sharded lockstep (two-BWT) navigation must reproduce the
     single-device navigate_two_bwts flags — incl. the DA — exactly."""
-    from ebwt2indel_tpu.models import fm_index, traverse
-    from ebwt2indel_tpu.ops import packing
-    from ebwt2indel_tpu.parallel import traverse as ptrav
-    from ebwt2indel_tpu.tools import ebwt as ebwt_tool
-    from ebwt2indel_tpu.utils import dna
+    from ebwt2indel.models import fm_index, traverse
+    from ebwt2indel.ops import packing
+    from ebwt2indel.parallel import traverse as ptrav
+    from ebwt2indel.tools import ebwt as ebwt_tool
+    from ebwt2indel.utils import dna
 
     genome = "".join(rng.choice(list("ACGT"), size=450))
     reads1 = [genome[i:i + 55] for i in range(0, 390, 5)]
@@ -264,11 +264,11 @@ def test_sharded_pair_navigation_matches_single_device(rng):
 def test_sharded_full_navigation_matches_single_device(rng):
     """Sharded leaf+node phases must reproduce the single-device
     navigate_one_bwt flags exactly."""
-    from ebwt2indel_tpu.models import fm_index, traverse
-    from ebwt2indel_tpu.ops import packing
-    from ebwt2indel_tpu.parallel import traverse as ptrav
-    from ebwt2indel_tpu.tools import ebwt as ebwt_tool
-    from ebwt2indel_tpu.utils import dna
+    from ebwt2indel.models import fm_index, traverse
+    from ebwt2indel.ops import packing
+    from ebwt2indel.parallel import traverse as ptrav
+    from ebwt2indel.tools import ebwt as ebwt_tool
+    from ebwt2indel.utils import dna
 
     genome = "".join(rng.choice(list("ACGT"), size=500))
     reads = [genome[i:i + 60] for i in range(0, 430, 4)]
@@ -292,9 +292,9 @@ def test_frontier_pair_overflow_retry_and_depth_fallback(rng, monkeypatch):
     """Starved leaf-pair budgets must trigger the overflow-retry doublings;
     a forced tri-lane depth violation must fall back to the replicated
     dense-plane navigation — both byte-identical to the replicated path."""
-    from ebwt2indel_tpu.models import traverse as T
-    from ebwt2indel_tpu.parallel import frontier
-    from ebwt2indel_tpu.parallel import traverse as ptraverse
+    from ebwt2indel.models import traverse as T
+    from ebwt2indel.parallel import frontier
+    from ebwt2indel.parallel import traverse as ptraverse
 
     mesh = shard.make_mesh(8)
     codes1 = random_codes(rng, 12000, p_term=0.04)
@@ -325,8 +325,8 @@ def test_frontier_work_distribution_scales(rng):
     nodes are split across shards (not replicated), the split covers the
     whole tree exactly once, and no shard is pathologically hot on a
     random read-scale input — the measurable half of the ~1/n_dev
-    scaling model (docs/PERF.md)."""
-    from ebwt2indel_tpu.parallel import frontier
+    scaling model."""
+    from ebwt2indel.parallel import frontier
 
     codes = random_codes(rng, 120000, p_term=0.01)
     pb = packing.pack_codes(codes)
@@ -350,8 +350,8 @@ def test_frontier_work_distribution_scales(rng):
 def test_pair_route_ab_leg_matches_replicated(rng, monkeypatch):
     """The EBWT_PAIR_ROUTE=0 (round-2 full-chunk all_gather) formulation
     must also stay flag-identical — keeps the A/B leg a real test."""
-    from ebwt2indel_tpu.parallel import frontier
-    from ebwt2indel_tpu.parallel import traverse as ptraverse
+    from ebwt2indel.parallel import frontier
+    from ebwt2indel.parallel import traverse as ptraverse
 
     monkeypatch.setattr(frontier, "_PAIR_ROUTE", False)
     mesh = shard.make_mesh(8)
@@ -374,7 +374,7 @@ def test_pair_route_comm_volume_accounting():
     formulation grows linearly with n_dev (VERDICT r2 #4 'Done'
     criterion). Uses the same byte model the phases implement
     (frontier.comm_bytes_per_step)."""
-    from ebwt2indel_tpu.parallel import frontier
+    from ebwt2indel.parallel import frontier
 
     chunk = 4096
     for k, w in ((6, 13), (2, 5)):  # node-pair, leaf-pair row shapes
@@ -398,8 +398,8 @@ def test_frontier_checkpoint_resume_kill_restart(rng, tmp_path, monkeypatch):
     """Frontier-phase checkpoint/resume (SURVEY §5): a run killed mid-phase
     and restarted from EBWT_CKPT_DIR must produce byte-identical flags to
     an uninterrupted run — for the mode-1 phases and the pair phases."""
-    from ebwt2indel_tpu.models import traverse as t1
-    from ebwt2indel_tpu.parallel import frontier
+    from ebwt2indel.models import traverse as t1
+    from ebwt2indel.parallel import frontier
 
     mesh = shard.make_mesh(8)
     codes1 = random_codes(rng, 40000, p_term=0.03)

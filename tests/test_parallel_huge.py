@@ -28,8 +28,8 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from ebwt2indel_tpu.ops import packing
-from ebwt2indel_tpu.parallel import shard
+from ebwt2indel.ops import packing
+from ebwt2indel.parallel import shard
 from tests.test_rank import random_codes
 
 
@@ -63,7 +63,7 @@ def test_loader_guard_fires_before_reading():
 def test_pair_navigation_guard_merged_cap(rng):
     """The MERGED coordinate space of modes 2/3 must fit the patterns even
     when each input does on its own (n1 + n2 >= CAP refused)."""
-    from ebwt2indel_tpu.parallel import frontier
+    from ebwt2indel.parallel import frontier
 
     mesh = shard.make_mesh(8)
     pb = packing.pack_codes(random_codes(rng, 4000))

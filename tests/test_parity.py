@@ -11,9 +11,9 @@ import subprocess
 import numpy as np
 import pytest
 
-from ebwt2indel_tpu.models import pipeline
-from ebwt2indel_tpu.tools import ebwt, simulate
-from ebwt2indel_tpu.utils.config import Config
+from ebwt2indel.models import pipeline
+from ebwt2indel.tools import ebwt, simulate
+from ebwt2indel.utils.config import Config
 
 REF_BIN = os.path.join(os.path.dirname(__file__), "..", ".ref_build",
                        "ebwt2InDel")
@@ -251,7 +251,7 @@ def test_mode1_fifty_x_with_rc_and_filter(tmp_path, rng):
     then filter_snp m=5 — both stages byte-identical to the reference."""
     import io
 
-    from ebwt2indel_tpu.tools import filter_snp
+    from ebwt2indel.tools import filter_snp
 
     genome = simulate.random_genome(rng, 4000)
     hap2, _ = simulate.plant_variants(rng, genome, snp_rate=0.004,
@@ -286,7 +286,7 @@ def test_memory_lean_paths_byte_parity(tmp_path, rng, monkeypatch):
     flag combine, packed right-anchor table, sliced cluster-run
     extraction) forced at small n via the lean threshold: outputs must
     stay byte-identical to the reference for modes 1 and 2."""
-    from ebwt2indel_tpu.models import traverse
+    from ebwt2indel.models import traverse
 
     monkeypatch.setattr(traverse, "_LEAN_N", 1000)
     monkeypatch.setattr(traverse, "_LOG_FLAGS_MIN", 0)
@@ -321,7 +321,7 @@ def test_huge_packed_paths_byte_parity(tmp_path, rng, monkeypatch):
     extraction (TraversalResult.packed) — forced at small n via
     EBWT_FORCE_HUGE_DIF: mode-1, mode-2, and mode-3 outputs must stay
     byte-identical to the reference."""
-    from ebwt2indel_tpu.models import traverse
+    from ebwt2indel.models import traverse
 
     monkeypatch.setattr(traverse, "_LEAN_N", 1000)
     monkeypatch.setattr(traverse, "_LOG_FLAGS_MIN", 0)

@@ -7,7 +7,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from ebwt2indel_tpu.ops import packing, rank
+from ebwt2indel.ops import packing, rank
 from tests import oracle
 
 
@@ -100,7 +100,7 @@ def test_bitvector_rank(rng):
 
 
 def test_bv_select_matches_oracle(rng):
-    from ebwt2indel_tpu.ops import bits as bits_ops
+    from ebwt2indel.ops import bits as bits_ops
 
     n = 40000
     bits = (rng.random(n) < 0.07).astype(np.uint8)
@@ -113,7 +113,7 @@ def test_bv_select_matches_oracle(rng):
 
 @pytest.mark.parametrize("extract", ["scatter", "select"])
 def test_device_clusters_match_host(rng, extract, monkeypatch):
-    from ebwt2indel_tpu.models import cluster
+    from ebwt2indel.models import cluster
 
     if extract == "select":
         monkeypatch.setenv("EBWT_CLUSTER_EXTRACT", "select")
@@ -134,7 +134,7 @@ def test_device_clusters_match_host(rng, extract, monkeypatch):
 @pytest.mark.parametrize("n", [127, 128, 129, 50000])
 def test_lean_upload_blocks_match_host(rng, n):
     """Device-rebuilt count words (lean upload) equal the host packer's."""
-    from ebwt2indel_tpu.models import fm_index
+    from ebwt2indel.models import fm_index
 
     codes = random_codes(rng, n)
     pb = packing.pack_codes(codes)
@@ -156,8 +156,8 @@ def test_save_load_packed(tmp_path, rng):
 
 
 def test_index_cache_roundtrip(tmp_path, rng, monkeypatch):
-    from ebwt2indel_tpu.models.fm_index import FMIndex
-    from ebwt2indel_tpu.utils import dna
+    from ebwt2indel.models.fm_index import FMIndex
+    from ebwt2indel.utils import dna
 
     codes = random_codes(rng, 3000)
     path = str(tmp_path / "x.ebwt")
@@ -173,7 +173,7 @@ def test_index_cache_roundtrip(tmp_path, rng, monkeypatch):
 
 
 def test_bv_build_device_matches_host(rng):
-    from ebwt2indel_tpu.ops import bits as bits_ops
+    from ebwt2indel.ops import bits as bits_ops
 
     n = 5000
     b = (rng.random(n) < 0.3).astype(np.uint8)
@@ -282,7 +282,7 @@ def test_parallel_rank_pair1_valid_mask(rng):
 def test_sparse_term_upload_matches_dense_blocks(rng):
     """EBWT_LEAN_UPLOAD=2 device rebuild (2 planes + sparse TERM scatter)
     is bit-identical to the host packer's full block layout."""
-    from ebwt2indel_tpu.models import fm_index
+    from ebwt2indel.models import fm_index
 
     n = 10000
     codes = random_codes(rng, n, p_term=0.01)
@@ -301,7 +301,7 @@ def test_sparse_term_upload_matches_dense_blocks(rng):
 def test_lean_upload_levels_identical(rng, monkeypatch):
     """EBWT_LEAN_UPLOAD 0 (full blocks) / 1 (3 planes) / 2 (2 planes +
     sparse TERM) must produce bit-identical device indexes."""
-    from ebwt2indel_tpu.models import fm_index
+    from ebwt2indel.models import fm_index
 
     codes = random_codes(rng, 30000, p_term=0.01)
     pb = packing.pack_codes(codes)

@@ -6,9 +6,9 @@ of ebwt2InDel.cpp:1348-1366)."""
 import numpy as np
 import pytest
 
-from ebwt2indel_tpu.models import fm_index, traverse
-from ebwt2indel_tpu.ops import packing
-from ebwt2indel_tpu.utils import dna
+from ebwt2indel.models import fm_index, traverse
+from ebwt2indel.ops import packing
+from ebwt2indel.utils import dna
 from tests import oracle
 
 
@@ -61,7 +61,7 @@ def test_leaf_wide_fallback_matches_packed(rng, monkeypatch):
     """Forcing the int32-per-field leaf programs (as on pathological
     >=2^15-depth inputs) must give identical flags to the packed dual-lane
     default, in both single and pair navigation."""
-    from ebwt2indel_tpu.models import traverse as T
+    from ebwt2indel.models import traverse as T
 
     genome = "".join(rng.choice(list("ACGT"), size=200))
     reads = oracle.random_reads(rng, 20, 25, mutate_from=genome)
@@ -146,7 +146,7 @@ def test_queue_roll_reclaim_matches_large_queue(rng):
     queue capacity and verify flags match a roomy-queue run."""
     import jax.numpy as jnp
 
-    from ebwt2indel_tpu.models import traverse as T
+    from ebwt2indel.models import traverse as T
 
     genome = "".join(rng.choice(list("ACGT"), size=300))
     reads = oracle.random_reads(rng, 30, 40, mutate_from=genome)
@@ -250,7 +250,7 @@ def test_compact_sliced_prefix(budget):
 def test_ramp_loop_equivalence(rng, monkeypatch):
     """The small-chunk ramp prelude must not change any flag or count
     (writes are order-free; chunking is an execution detail)."""
-    from ebwt2indel_tpu.models import traverse as T
+    from ebwt2indel.models import traverse as T
 
     genome = "".join(rng.choice(list("ACGT"), size=300))
     reads = oracle.random_reads(rng, 25, 30, mutate_from=genome)
@@ -284,7 +284,7 @@ def test_bounded_dispatch_and_checkpoint_resume(tmp_path, rng, monkeypatch):
     identical flags to a single-dispatch run, and a phase interrupted at
     a checkpoint must resume to the same result (SURVEY.md §5 traversal
     checkpoint)."""
-    from ebwt2indel_tpu.models import traverse as T
+    from ebwt2indel.models import traverse as T
 
     genome = "".join(rng.choice(list("ACGT"), size=400))
     reads = oracle.random_reads(rng, 40, 40, mutate_from=genome)

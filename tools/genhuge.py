@@ -68,7 +68,7 @@ def ebwt_of_read_matrix(text: np.ndarray) -> np.ndarray:
     tools/ebwt.ebwt_of_reads (same suffix order: terminators distinct by
     read index, below all bases; byte-parity pinned in
     tests/test_tools.py)."""
-    from ebwt2indel_tpu.tools.ebwt import suffix_array_sentinel
+    from ebwt2indel.tools.ebwt import suffix_array_sentinel
 
     n_reads, row = text.shape
     read_len = row - 1
@@ -99,7 +99,7 @@ def main() -> None:
     coverage = float(sys.argv[3]) if len(sys.argv) > 3 else 25.0
     read_len = int(sys.argv[4]) if len(sys.argv) > 4 else 100
 
-    from ebwt2indel_tpu.tools import simulate
+    from ebwt2indel.tools import simulate
 
     t0 = time.time()
     rng = np.random.default_rng(0xB16B16)

@@ -33,8 +33,8 @@ def main() -> int:
     inp, out = sys.argv[1], sys.argv[2]
     report = sys.argv[3] if len(sys.argv) > 3 else None
 
-    from ebwt2indel_tpu.models import pipeline
-    from ebwt2indel_tpu.utils.config import Config
+    from ebwt2indel.models import pipeline
+    from ebwt2indel.utils.config import Config
 
     n = os.path.getsize(inp)
     cfg = Config(input1=inp, output=out)

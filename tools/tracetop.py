@@ -5,8 +5,9 @@ Usage: python tools/tracetop.py <trace.json.gz | trace.json> [top_n]
 
 Reads the trace written under EBWT_PROFILE=<dir> (jax.profiler writes
 plugins/profile/<run>/*.trace.json.gz) and prints the top-N event names by
-summed duration on device tracks — the quick view needed to decide which
-phase op to attack next (cf. docs/PERF.md optimization journey)."""
+summed duration on the GPU device tracks (process names starting with
+``/device:GPU:``) — host threads are left out. A trace with no GPU track
+is an error."""
 
 from __future__ import annotations
 
@@ -23,6 +24,13 @@ def load_events(path: str):
     return data.get("traceEvents", data if isinstance(data, list) else [])
 
 
+def gpu_pids(events) -> set:
+    """pids of the trace's GPU device planes (``/device:GPU:<i>``)."""
+    return {e.get("pid") for e in events
+            if e.get("ph") == "M" and e.get("name") == "process_name"
+            and e.get("args", {}).get("name", "").startswith("/device:GPU:")}
+
+
 def main() -> int:
     if len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
@@ -31,13 +39,10 @@ def main() -> int:
     top_n = int(sys.argv[2]) if len(sys.argv) > 2 else 25
     events = load_events(path)
 
-    # device tracks: pid names containing TPU/device; fall back to all
-    pid_names = {}
-    for e in events:
-        if e.get("ph") == "M" and e.get("name") == "process_name":
-            pid_names[e.get("pid")] = e.get("args", {}).get("name", "")
-    device_pids = {p for p, n in pid_names.items()
-                   if "TPU" in n or "device" in n.lower() or "/device" in n}
+    device_pids = gpu_pids(events)
+    if not device_pids:
+        print("no /device:GPU: track in this trace", file=sys.stderr)
+        return 1
 
     tot = defaultdict(float)
     cnt = defaultdict(int)
@@ -45,7 +50,7 @@ def main() -> int:
     for e in events:
         if e.get("ph") != "X":
             continue
-        if device_pids and e.get("pid") not in device_pids:
+        if e.get("pid") not in device_pids:
             continue
         d = float(e.get("dur", 0.0))
         name = e.get("name", "?")

@@ -12,8 +12,8 @@ deterministically. Writes one JSON report (default VALIDATION_r03.json).
 Usage:
     BENCH_GENOME_LEN=20000000 python tools/validate_bench.py [out.json]
 
-Runs the caller on whatever JAX backend is available (TPU under the
-driver env; set JAX_PLATFORMS=cpu to force host).
+Runs the caller on whatever JAX backend is available (the GPU when
+present; set JAX_PLATFORMS=cpu to force host).
 """
 
 from __future__ import annotations
@@ -34,10 +34,10 @@ import bench  # noqa: E402  (dataset recipe: seed, rates, coverage)
 def main() -> int:
     out_json = sys.argv[1] if len(sys.argv) > 1 else \
         os.path.join(REPO, "VALIDATION_r03.json")
-    from ebwt2indel_tpu.models import pipeline
-    from ebwt2indel_tpu.tools import (context2vcf, filter_snp, simulate,
+    from ebwt2indel.models import pipeline
+    from ebwt2indel.tools import (context2vcf, filter_snp, simulate,
                                       sort_vcf, vcf_vs_vcf)
-    from ebwt2indel_tpu.utils.config import Config
+    from ebwt2indel.utils.config import Config
 
     t0 = time.time()
     path = bench.ensure_dataset_mode1()

@@ -11,7 +11,7 @@ Usage:
 GENOME_LEN must match the genhuge invocation that produced IN.ebwt (the
 genome + planted truth regenerate deterministically from genhuge's seed).
 If CALLS.snp exists it is reused (e.g. the run_huge.py output on the same
-input — saves the second multi-minute TPU call); otherwise mode 1 runs
+input — saves a second multi-minute run); otherwise mode 1 runs
 here. Writes OUT.json (default VALIDATION_r05.json).
 """
 
@@ -36,7 +36,7 @@ def main() -> int:
     out_json = sys.argv[4] if len(sys.argv) > 4 else \
         os.path.join(REPO, "VALIDATION_r05.json")
 
-    from ebwt2indel_tpu.tools import (context2vcf, filter_snp, simulate,
+    from ebwt2indel.tools import (context2vcf, filter_snp, simulate,
                                       sort_vcf, vcf_vs_vcf)
 
     t0 = time.time()
@@ -64,8 +64,8 @@ def main() -> int:
     # 1) call (reuse an existing .snp if provided)
     t_call = None
     if not os.path.isfile(snp_path):
-        from ebwt2indel_tpu.models import pipeline
-        from ebwt2indel_tpu.utils.config import Config
+        from ebwt2indel.models import pipeline
+        from ebwt2indel.utils.config import Config
 
         t = time.time()
         pipeline.run_one_dataset(Config(input1=ebwt_path, output=snp_path),
